@@ -2,12 +2,12 @@
 
 The reference's default solver is VCABM — adaptive multistep Adams (reference
 src/core/icnf.jl:89) at ~2 new f-evals per step vs 6 per dopri5 trial.  This
-measures whether the TPU-native fixed-max-order variable-step ABM
+measures whether the XLA-native fixed-max-order variable-step ABM
 (ops/ode.py:odeint_abm) actually beats the embedded-RK pair on the fields
 that matter: a trained (smooth, regularized) CNF, not a toy linear ODE.
 
 Reports, per method, on TRAIN-mode forward loss + TEST-mode inference +
-adjoint gradient: NFE, accepted/rejected steps, ms/solve.  Run on TPU:
+adjoint gradient: NFE, accepted/rejected steps, ms/solve.  Run on a GPU:
 
     python benchmarks/abm_ab.py [--batch 4096] [--train-iters 300]
 """

@@ -6,7 +6,7 @@ solver config (dopri5 rtol=atol=1e-4, icnf.jl:84-102):
                                backward state (a, q) only
 
 Measures full loss+grad wall time (scan of STEPS as one dispatch, best of 3)
-and gradient agreement between the two.  Run on the real TPU:
+and gradient agreement between the two.  Run on a GPU:
 
     python benchmarks/adjoint_ab.py [--batch 4096]
 """

@@ -16,11 +16,11 @@ gap into its three suspected sources:
   (FFJORD-style) to isolate how much of the gap is the RNODE objective
   rather than misfit.
 
-Train: bf16 rk4-32 discretize-then-optimize, batch 1024,
-``steps_per_dispatch=16`` (dispatch-bound host).  Eval: fp32-HIGHEST
+Train: rk4-32 discretize-then-optimize at precision "default", batch 1024,
+``steps_per_dispatch=16`` (dispatch-bound host).  Eval: float32 "highest"
 adaptive dopri5 at the reference tolerances, exact trace, held-out 8192.
 
-Run: python benchmarks/cfg1_converge.py --epochs 300        (TPU)
+Run: python benchmarks/cfg1_converge.py --epochs 300        (GPU)
      JAX_PLATFORMS=cpu python benchmarks/cfg1_converge.py --epochs 30 --quick
 """
 

@@ -11,7 +11,7 @@ baseline.  Also reports the classification-by-likelihood accuracy
 argmax_y logp(x | y) — a density model that has learned the classes
 separates them.
 
-    python benchmarks/cond_digits.py                 # full run (TPU)
+    python benchmarks/cond_digits.py                 # full run (GPU)
     python benchmarks/cond_digits.py --steps 200 --cpu   # smoke
 """
 
@@ -22,7 +22,7 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-if "--cpu" in sys.argv:  # must precede jax backend init (CLAUDE.md gotcha)
+if "--cpu" in sys.argv:  # must precede jax backend init
     sys.argv.remove("--cpu")
     import jax
 

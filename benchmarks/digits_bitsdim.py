@@ -11,7 +11,7 @@ examples/usage.jl:60-127, test/ci_tests/regression_tests.jl:17-28) on actual
 images, where the yardsticks are a held-out test set and a fitted diagonal
 Gaussian baseline instead of a known pdf.
 
-    python benchmarks/digits_bitsdim.py                 # full run (TPU)
+    python benchmarks/digits_bitsdim.py                 # full run (GPU)
     python benchmarks/digits_bitsdim.py --steps 300 --cpu   # smoke
 
 Reports train/test bits/dim each eval (overfitting monitor — the round-2
@@ -26,7 +26,7 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-if "--cpu" in sys.argv:  # must precede jax backend init (CLAUDE.md gotcha)
+if "--cpu" in sys.argv:  # must precede jax backend init
     sys.argv.remove("--cpu")
     import jax
 

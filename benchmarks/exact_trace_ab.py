@@ -5,7 +5,7 @@ linearize sweeps per dynamics eval — the dominant inference cost.  Round 2
 replaced it with the analytic O(1)-matmul trace for shallow-MLP dynamics
 (ops/dynamics.py:_mlp_exact_trace).  This measures both paths on the same
 trained-shape model (the sweep is forced through an isinstance-defeating
-wrapper).  Run on TPU:
+wrapper).  Run on a GPU:
 
     python benchmarks/exact_trace_ab.py [--batch 4096] [--nvariables 43]
 """

@@ -12,7 +12,7 @@ Evaluation is the exact-trace (TestMode) path — O(1)-matmul analytic MLP
 trace (ops/dynamics.py:_mlp_exact_trace), so exact 784-d log-likelihoods are
 cheap enough to run at every checkpoint.
 
-    python benchmarks/image_bitsdim.py                    # full 784-d run (TPU)
+    python benchmarks/image_bitsdim.py                    # full 784-d run (GPU)
     python benchmarks/image_bitsdim.py --side 8 --steps 400 --hidden 128  # smoke
 """
 
@@ -23,7 +23,7 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-if "--cpu" in sys.argv:  # must precede jax backend init (CLAUDE.md gotcha)
+if "--cpu" in sys.argv:  # must precede jax backend init
     sys.argv.remove("--cpu")
     import jax
 
@@ -33,34 +33,9 @@ import jax.numpy as jnp
 import optax
 
 import continuousnormalizingflows_tpu as cnf
-from continuousnormalizingflows_tpu.config import Mode, SolverConfig
-from continuousnormalizingflows_tpu.models.nets import MLP
+from continuousnormalizingflows_tpu.config import Mode
 from continuousnormalizingflows_tpu.utils import datasets
-
-
-def build(side, hidden, train_precision):
-    d = side * side
-    cfg_train = cnf.ICNFConfig(
-        nvariables=d,
-        naugments=0,          # FFJORD-style at image scale
-        lambda_1=0.01,        # RNODE kinetic + Frobenius regularization keeps
-        lambda_2=0.01,        # the field smooth (fewer NFE at eval)
-        lambda_3=0.0,
-        steer_rate=0.0,
-        solver=SolverConfig(method="rk4", gradient="backprop", fixed_steps=24),
-    )
-    net = MLP((cfg_train.n_in, hidden, hidden, cfg_train.n_out),
-              precision=train_precision)
-    icnf_train = cnf.ICNF(config=cfg_train, net=net)
-    # eval twin: exact trace, adaptive fp32 at the reference tolerances
-    import dataclasses
-
-    cfg_eval = dataclasses.replace(
-        cfg_train, solver=SolverConfig(method="dopri5", rtol=1e-4, atol=1e-4)
-    )
-    net_eval = MLP(net.widths, precision="highest")
-    icnf_eval = cnf.ICNF(config=cfg_eval, net=net_eval)
-    return icnf_train, icnf_eval
+from chip_smoke import image_flow
 
 
 def main():
@@ -80,14 +55,14 @@ def main():
     ap.add_argument("--cosine", action="store_true",
                     help="cosine-decay the learning rate over --steps")
     ap.add_argument("--precision", default="default",
-                    help="train MXU precision: default (bf16 passes) | highest")
+                    help="train matmul precision: default (TF32 on the GPU) | highest")
     ap.add_argument("--save", default=None,
                     help="checkpoint path for the final params (pickle backend)")
     args = ap.parse_args()
     d = args.side * args.side
     print("device:", jax.devices()[0], "| d =", d, flush=True)
 
-    icnf, icnf_eval = build(args.side, args.hidden, args.precision)
+    icnf, icnf_eval = image_flow(args.side, args.hidden, args.precision)
     params = icnf.init(jax.random.PRNGKey(0))
     n_params = sum(p.size for p in jax.tree_util.tree_leaves(params))
     print(f"params: {n_params/1e6:.2f} M", flush=True)
@@ -116,8 +91,8 @@ def main():
     @jax.jit
     def run_chunk(params, opt_state, key, xb_all):
         # batches are pre-gathered outside jit: an in-scan gather over the
-        # full train set materialized a train_n-sized temp per step on TPU
-        # (HBM OOM at d=784); the chunk of batches is a modest dense input
+        # full train set materialized a train_n-sized temp per step (device
+        # out of memory at d=784); the chunk of batches is a modest dense input
         def step(carry, xb):
             params, opt_state, key = carry
             key, k_s = jax.random.split(key)

@@ -1,10 +1,9 @@
 """A/B the solve-internal array layout on the flagship bench config.
 
-Hypothesis (ROADMAP "tiny-net speed-of-light"): the reference-default dynamics
-net is 5-24 features wide, so batch-first ``(B, d)`` arrays use only d of 128
-lanes on every elementwise op / memory access inside the step loop;
-``layout="feature_first"`` puts the batch in the lane dimension and removes
-that bound.  Run on the real TPU:
+Hypothesis: the reference-default dynamics net is 5-24 features wide, so in
+batch-first ``(B, d)`` arrays the contiguous dimension is tiny on every
+elementwise op / memory access inside the step loop;
+``layout="feature_first"`` makes the batch the contiguous dimension.  Run on a GPU:
 
     python benchmarks/layout_ab.py
 """

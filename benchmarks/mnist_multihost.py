@@ -14,7 +14,7 @@ dequantized + logit-transformed as in the FFJORD paper).
 Single-process examples:
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python benchmarks/mnist_multihost.py --steps 5 --batch 256
-  python benchmarks/mnist_multihost.py --steps 50            # real TPU
+  python benchmarks/mnist_multihost.py --steps 50            # GPU
 """
 
 import argparse

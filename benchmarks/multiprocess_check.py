@@ -1,11 +1,12 @@
-"""Two-process distributed-runtime validation (multi-host mechanism, no TPU pod).
+"""Two-process distributed-runtime validation (multi-host mechanism, CPU only).
 
 Spawns N worker processes on this host, each running
 ``jax.distributed.initialize`` against a local coordinator with one CPU
 device per process, builds the global mesh, and runs one sharded ICNF train
 step — validating the multi-host wiring (`parallel.initialize_distributed`,
-process-spanning mesh, psum gradient reduction) that a real pod slice uses,
-without TPU hardware.
+process-spanning mesh, psum gradient reduction) that a multi-host job uses.
+The workers are pinned to the CPU: several processes must never share one
+GPU (each would reserve most of its memory).
 
 Run: python benchmarks/multiprocess_check.py [--nprocs 2]
 """

@@ -3,19 +3,19 @@
 The reference defaults to batched VJP Hutchinson (LuxVecJacMatrixMode,
 reference src/core/icnf.jl:55) and also ships the JVP (forward-mode) variant
 (LuxJacVecMatrixMode, utils.jl:160-170); both estimate tr(J) with the same
-statistics (E[eps^T J eps] = tr J for isotropic eps).  On TPU their cost
+statistics (E[eps^T J eps] = tr J for isotropic eps).  Their cost
 structures differ: the VJP transposes the MLP chain (reverse-mode residuals),
 the JVP pushes a tangent through the forward chain (forward-mode, no
 residuals) — under backprop-through-solver training, grad-of-JVP is
 forward-over-reverse while grad-of-VJP is reverse-over-reverse.  Which wins
-on the MXU is an empirical question this measures; the reference never does.
+on the device is an empirical question this measures; the reference never does.
 
 Also measures nprobes scaling {1,2,4,8}: probes multiply per-eval math
-(variance down as 1/nprobes) — on a padded-contraction tiny net the extra
-probes may be nearly free, a capability the reference lacks (fixed 1 probe,
+(variance down as 1/nprobes) — on a tiny net the extra probes may be
+nearly free, a capability the reference lacks (fixed 1 probe,
 base_icnf.jl:207-208).
 
-    python benchmarks/probe_ab.py            # TPU
+    python benchmarks/probe_ab.py            # GPU
 """
 
 import os
@@ -112,7 +112,7 @@ def main():
     print("device:", jax.devices()[0], flush=True)
 
     for d, batch in ((2, 65536), (43, 4096)):
-        print(f"\nTRAIN rk4-32 backprop bf16, d={d}, batch={batch} "
+        print(f"\nTRAIN rk4-32 backprop default precision, d={d}, batch={batch} "
               f"(VJP = reference default):", flush=True)
         t_v = bench_train(d, batch, TraceEstimator.HUTCH_VJP, 1,
                           label="hutch-VJP p=1")
@@ -128,7 +128,7 @@ def main():
                       gradient="adjoint", label="hutch-JVP p=1")
     print(f"  JVP is {t_v/t_j:.2f}x the VJP step rate", flush=True)
 
-    print("\nnprobes scaling (rk4-32 backprop bf16, d=2, batch=65536):",
+    print("\nnprobes scaling (rk4-32 backprop default precision, d=2, batch=65536):",
           flush=True)
     base = None
     for p in (1, 2, 4, 8):

@@ -8,7 +8,7 @@ folding needed).
 
 Run: JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
        python benchmarks/tabular.py --dims 6 --steps 5 --batch 1024
-     python benchmarks/tabular.py --dims 43 --batch 8192          (TPU)
+     python benchmarks/tabular.py --dims 43 --batch 8192          (GPU)
 """
 
 import argparse

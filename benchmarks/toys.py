@@ -8,7 +8,7 @@
    conditional densities separate the classes.
 
 Run: JAX_PLATFORMS=cpu python benchmarks/toys.py --epochs 40   (quick CPU)
-     python benchmarks/toys.py                                  (TPU, full)
+     python benchmarks/toys.py                                  (GPU, full)
 """
 
 import argparse

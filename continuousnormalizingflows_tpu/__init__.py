@@ -1,6 +1,6 @@
-"""TPU-native continuous normalizing flows.
+"""Continuous normalizing flows in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
+A from-scratch JAX/XLA framework with the capabilities of
 impICNF/ContinuousNormalizingFlows.jl (FFJORD / RNODE / ANODE / STEER /
 conditional and planar variants; exact and Hutchinson trace estimators;
 adaptive and fixed-step ODE solves; continuous-adjoint and

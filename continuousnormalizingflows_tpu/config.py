@@ -1,9 +1,9 @@
-"""Static configuration for the TPU-native ICNF framework.
+"""Static configuration for the ICNF framework.
 
 The reference library (impICNF/ContinuousNormalizingFlows.jl) encodes behavior
 variants as Julia compile-time type parameters on one unified ``ICNF`` struct
 (reference ``src/core/types.jl:1-45`` and ``src/core/icnf.jl:16-141``).  The
-TPU-native equivalent is a frozen, hashable dataclass that is passed to
+JAX equivalent is a frozen, hashable dataclass that is passed to
 ``jax.jit`` as a *static* argument: every boolean/enum below is resolved at
 trace time, so variant selection costs zero at runtime — the same property the
 reference gets from dispatch.
@@ -34,10 +34,9 @@ import jax.numpy as jnp
 LOG_2PI = 1.8378770664093453
 
 # The fixed-fraction starting step used wherever dt0="auto" does not apply:
-# the backward adjoint solve, the ABM order-1 ramp, the fused adaptive
-# kernel, and the HNW non-finite fallback (one shared constant — retuning it
-# must move all four in lockstep; measured rationales in ops/ode.py and
-# ops/adjoint.py docstrings).
+# the backward adjoint solve, the ABM order-1 ramp, and the HNW non-finite
+# fallback (one shared constant — retuning it must move all three in
+# lockstep; rationales in ops/ode.py and ops/adjoint.py docstrings).
 DEFAULT_FIXED_DT0 = 0.01
 
 __all__ = [
@@ -107,7 +106,7 @@ class SolverConfig:
 
     Mirrors the reference ``sol_kwargs`` (icnf.jl:84-102): adaptive solver with
     ``reltol = abstol = 1e-4`` and a continuous-adjoint gradient
-    (``QuadratureAdjoint``).  TPU-first choices: the adaptive method is an
+    (``QuadratureAdjoint``).  XLA-first choices: the adaptive method is an
     embedded Runge-Kutta (Dormand-Prince 5(4)) driven by ``lax.while_loop``
     (multistep VCABM state machines map poorly onto XLA), and a fixed-step
     ``lax.scan`` path (``method="rk4"``) supports discretize-then-optimize
@@ -127,11 +126,10 @@ class SolverConfig:
     #                solve of (a, q) only — the closest analogue of the
     #                reference's QuadratureAdjoint (icnf.jl:90-99); stabler on
     #                stiff/long flows (no y-reconstruction error), costs
-    #                O(dense_max_nodes) forward-state memory.  Measured on TPU
-    #                (PARITY.md): 0.92x of backsolve under dopri5 but **1.56x
-    #                FASTER** under abm (the multistep backsolve re-integrates
-    #                the primal backward) — pair method="abm" with this, as the
-    #                reference's default stack does (VCABM + QuadratureAdjoint)
+    #                O(dense_max_nodes) forward-state memory.  Pair
+    #                method="abm" with this (the multistep backsolve
+    #                re-integrates the primal backward), as the reference's
+    #                default stack does (VCABM + QuadratureAdjoint)
     # "backprop"   — discretize-then-optimize (fixed-step methods only)
     gradient: str = "adjoint"
     remat: bool = True  # checkpoint each scan step in backprop mode
@@ -139,16 +137,16 @@ class SolverConfig:
     # Hairer-Nørsett-Wanner starting-step algorithm (one extra f eval) — what
     # the reference's SciML solve does with no dt given, and measurably
     # cheaper than any fixed guess on trained CNF fields (dopri5 NFE 25→20
-    # TRAIN / 37→32 TEST, tsit5 25→20 at rtol 1e-4; PARITY.md).  A float
+    # TRAIN / 37→32 TEST, tsit5 25→20 at rtol 1e-4; PARITY.md, read before
+    # the move to the GPU).  A float
     # fixes the start to that fraction of the span (the pre-round-3
     # behavior was 0.01).  "carry" (round 5) = warm-start each TRAINING
     # step's solve — forward AND backward-adjoint — with the previous
     # step's accepted dt (SolverStats.dt_final, threaded by ICNFModel/the
     # loss dt0= argument): parameters move slowly between optimizer steps,
     # so the last accepted dt is a near-optimal start and the per-solve
-    # controller ramps disappear — measured on v5e (PARITY round 5):
-    # adaptive train NFE 25 → 7 and **2.37x samples/s** over the fixed
-    # ramp, gradients matching to 1e-6.  Solves with no carried value fall
+    # controller ramps disappear (adaptive train NFE 19 → 7 near init,
+    # bench.py on an H100; gradients matching to 1e-6, PARITY round 5).  Solves with no carried value fall
     # back to "auto".  ABM always uses the fixed-fraction start (its
     # order-1 ramp needs small early steps; measured in ops.ode).
     dt0: Any = "auto"
@@ -274,35 +272,13 @@ class ICNFConfig:
     lambda_3: float = 0.01  # terminal augmented-norm weight (ANODE)
     dtype: Any = jnp.float32
     solver: SolverConfig = dataclasses.field(default_factory=SolverConfig)
-    # Use the fused whole-solve Pallas kernel when applicable (TPU backend,
-    # 3-layer softplus MLP with h <= 128, Hutchinson-VJP, single probe,
-    # rk4 + backprop, regularized train mode).  Off-TPU or for other
-    # configurations the XLA path is used automatically.
-    # Default False: measured on v5e (PARITY.md), the kernel wins in the
-    # h≈128 band (1.17x over XLA-bf16, 2.3x over XLA-fp32) where the
-    # 128-lane contraction padding is free, and loses at the tiny default
-    # widths where XLA contracts at k=24 while the kernel pays k=128.
-    fused: bool = False
-    # Separately gate the ADAPTIVE whole-solve kernel (pallas_adaptive):
-    # measured on v5e (PARITY.md round 3) it loses or ties everywhere the
-    # fixed-step kernel wins (tiny 0.32x, h=128 0.92x at b=16k, 1.00x at
-    # b=64k vs fp32 XLA, loss parity exact), and its per-tile error control
-    # resolves sample-local stiffness the global-batch RMS norm dilutes —
-    # which changes TRAINING trajectories vs the reference's global-norm
-    # semantics (observed: a 65k-batch run diverging at step 3 where the XLA
-    # path trains on).  Kept as a validated opt-in (gradients match XLA to
-    # 4e-5 on hardware) for tile-local-adaptivity experiments; never routes
-    # unless BOTH fused and fused_adaptive are set.
-    fused_adaptive: bool = False
     # Array layout *inside the ODE solve*:
-    #   "batch_first"   — (batch, features): natural NumPy layout, batch on
-    #                     MXU rows; features live in the 128-lane dimension,
-    #                     so widths << 128 waste lanes on every elementwise op
-    #                     and memory access.
-    #   "feature_first" — (features, batch): batch in lanes (the TPU-packed
+    #   "batch_first"   — (batch, features): natural NumPy layout; features
+    #                     are the minor-most (contiguous) dimension.
+    #   "feature_first" — (features, batch): batch is minor-most (the
     #                     analogue of the reference's d×n samples-last layout,
-    #                     mlj_ext/core_icnf.jl:33); removes the lane-padding
-    #                     bound for the tiny reference-default nets.
+    #                     mlj_ext/core_icnf.jl:33), so tiny feature widths do
+    #                     not set the contiguous extent of every operand.
     # The public API stays batch-first either way — transposes happen once per
     # solve, not per step.
     layout: str = "batch_first"

@@ -1,6 +1,6 @@
 """Functional core: ``inference``, ``generate``, ``loss``.
 
-TPU-native re-design of the reference's problem-assembly + solve + extraction
+JAX-native re-design of the reference's problem-assembly + solve + extraction
 pipeline (``src/core/base_icnf.jl``): there is no ODEProblem object — each
 entry point pads the state, samples the Hutchinson probe, (optionally) steers
 the end time, runs the differentiable integrator, and splits the terminal
@@ -132,81 +132,12 @@ def _solve(
     """``dt0``: optional traced starting-step override (the carried warm
     start, ``SolverConfig.dt0 == "carry"``) — consumed by the adaptive RK
     solvers via the reserved ``args["dt0"]`` channel (ops.ode._pop_dt0);
-    ignored by fixed-step/ABM solves and by the fused kernels (their per-tile
-    controllers use the fixed start by contract)."""
+    ignored by fixed-step/ABM solves."""
     cfg = icnf.config
-    if eps is not None:
-        from .ops.pallas_adaptive import (
-            MAX_NODES_VMEM_CAP,
-            _scfg_tuple,
-            fused_adaptive_applicable,
-            fused_adaptive_tile,
-            fused_solve_dopri5,
-            stats_from_rows,
-        )
-        from .ops.pallas_solve import (
-            fused_solve_applicable,
-            fused_solve_rk4,
-            fused_solve_tile,
-        )
-
-        if fused_adaptive_applicable(cfg, icnf.net, mode) and fused_adaptive_tile(
-            u0.shape[0]
-        ):
-            if cfg.solver.dense_max_nodes > MAX_NODES_VMEM_CAP:
-                import warnings
-
-                # trace-time, not per step: this closure runs once per jit
-                # trace.  Without the warning a raised dense_max_nodes (the
-                # SolverConfig docs' stiff-flow advice) silently caps at the
-                # VMEM ceiling and overflow NaN-poisons gradients with nothing
-                # pointing at the cap (ADVICE round 4).
-                warnings.warn(
-                    f"fused_adaptive caps the backward node buffer at "
-                    f"{MAX_NODES_VMEM_CAP} nodes (VMEM ceiling; 128 nodes "
-                    f"compile-OOMs on v5e) but solver.dense_max_nodes="
-                    f"{cfg.solver.dense_max_nodes} — solves needing more than "
-                    f"{MAX_NODES_VMEM_CAP} accepted steps will NaN-poison "
-                    f"gradients.  Set fused_adaptive=False to use the XLA "
-                    f"path, which honors dense_max_nodes fully.",
-                    stacklevel=2,
-                )
-            t_col = cfg.nz if not cfg.autonomous else None
-            # the backward node-buffer capacity honors dense_max_nodes
-            # downward but is capped at the measured VMEM ceiling (128 nodes
-            # compile-time-OOMs the backward tile on v5e — pallas_adaptive
-            # docstring); overflow NaN-poisons gradients loudly
-            u1, rows = fused_solve_dopri5(
-                u0, eps[0], ys, params, (t0, t1), cfg.nz, t_col,
-                _scfg_tuple(cfg.solver),
-                min(cfg.solver.dense_max_nodes, MAX_NODES_VMEM_CAP),
-            )
-            return u1, stats_from_rows(rows, cfg.dtype)
-        if fused_solve_applicable(cfg, icnf.net, mode) and fused_solve_tile(
-            u0.shape[0], icnf.net.widths[1]
-        ):
-            t_col = cfg.nz if not cfg.autonomous else None
-            cdt = (
-                jnp.bfloat16
-                if getattr(icnf.net, "precision", "highest") != "highest"
-                else None
-            )
-            u1 = fused_solve_rk4(
-                u0, eps[0], ys, params, (t0, t1), cfg.nz, t_col,
-                cfg.solver.fixed_steps, 256, cdt,
-            )
-            steps = cfg.solver.fixed_steps
-            stats = SolverStats(
-                jnp.int32(4 * steps),
-                jnp.int32(steps),
-                jnp.int32(0),
-                (jnp.asarray(t1, cfg.dtype) - jnp.asarray(t0, cfg.dtype)) / steps,
-            )
-            return u1, stats
     f_aug = make_augmented_dynamics(cfg, icnf.net, mode)
     extra = {} if dt0 is None else {"dt0": dt0}
     if cfg.layout == "feature_first":
-        # batch moves to the lane (minor-most) dimension for the whole solve;
+        # batch moves to the minor-most dimension for the whole solve;
         # one transpose in, one out — not per step (ICNFConfig.layout).
         args = {
             "params": params,
@@ -286,7 +217,7 @@ def _generate_tracefree_impl(icnf: ICNF, mode: Mode, params, key, n: int, ys):
     per-step trace estimate (Hutchinson VJP ≈3x the matmuls of one field
     eval; generic-net exact trace O(nz) sweeps).  The reference's
     ``generate_prob`` always integrates the full augmented system
-    (base_icnf.jl:298-404) — this path is a TPU-first capability beyond it.
+    (base_icnf.jl:298-404) — this path is a XLA-first capability beyond it.
 
     Keys are split exactly as in :func:`_generate_logp_impl` (base/probe/steer),
     so for the same ``key`` the base draw and steered end time are

@@ -4,7 +4,7 @@ The reference constructor accepts arbitrary ``basedist::Distributions.
 Distribution`` and ``epsdist`` fields (``/root/reference/src/core/icnf.jl:
 76-83``), consumed at exactly two points: ``logpdf(basedist, z)`` in
 ``inference_sol`` (``base_icnf.jl:158-172``) and the probe draw
-``rand(rng, epsdist)`` (``base_icnf.jl:207-208``).  The TPU-native analogue
+``rand(rng, epsdist)`` (``base_icnf.jl:207-208``).  The JAX-native analogue
 is a static ``(logpdf_fn, sample_fn)`` pair carried on the frozen config —
 the callables are resolved at trace time, so a custom base costs nothing at
 runtime (same property the reference gets from dispatch on the distribution

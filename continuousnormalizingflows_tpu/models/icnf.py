@@ -26,10 +26,11 @@ def default_net(cfg: ICNFConfig, precision: str = "highest") -> MLP:
     """Reference default dynamics net (icnf.jl:62-71):
     ``Dense(n_in -> 4*n_in, softplus) -> Dense(softplus) -> Dense(-> n_out)``.
 
-    ``precision``: MXU matmul precision — "highest" (float32-accurate, required
-    for adaptive 1e-4 error control and density parity) or "default" (bf16
-    passes; measured 2.2x faster train steps with ~1.5e-2 logpx error on the
-    fixed-step path)."""
+    ``precision``: matmul precision — "highest" (float32-accurate, required
+    for adaptive 1e-4 error control and density parity) or "default" (the
+    backend's fast float32 matmul: TF32 tensor-core passes on NVIDIA GPUs,
+    about 10 mantissa bits — for fixed-step solvers where Monte-Carlo trace
+    noise dominates)."""
     h = 4 * cfg.n_in
     return MLP((cfg.n_in, h, h, cfg.n_out), dtype=cfg.dtype, precision=precision)
 
@@ -81,8 +82,6 @@ class ICNF:
         solver: Optional[SolverConfig] = None,
         net: Optional[DynamicsNet] = None,
         precision: str = "highest",
-        fused: bool = False,
-        fused_adaptive: bool = False,
         layout: str = "batch_first",
     ) -> "ICNF":
         """Build an ICNF with reference-matching defaults (icnf.jl:53-103).
@@ -96,19 +95,15 @@ class ICNF:
         ``Uniform(-steer_rate, steer_rate)`` for the steering multiplier.
 
         ``nprobes``: Hutchinson probes per solve.  The reference fixes 1
-        (base_icnf.jl:207-208); this is a capability beyond it.  Measured on
-        v5e (PARITY.md round 3, tiny-net config): **nprobes=4 is the
-        variance-per-wall-clock optimum** — estimator std² × step time drops
-        5.96 → 3.31 vs a single probe (probe sweeps batch into the MXU's
-        spare capacity until ~4, after which time grows linearly).  Use 1 for
-        strict reference parity, 4 when estimator variance matters; with a
-        mesh, ``probe_axis`` shards the ensemble.
+        (base_icnf.jl:207-208); this is a capability beyond it: the trace
+        estimator's variance falls as 1/nprobes while the probe VJPs batch
+        into one matmul chain.  Use 1 for strict reference parity, more when
+        estimator variance matters; with a mesh, ``probe_axis`` shards the
+        ensemble.
         """
         import jax.numpy as jnp
 
         cfg = ICNFConfig(
-            fused=fused,
-            fused_adaptive=fused_adaptive,
             layout=layout,
             nvariables=nvariables,
             naugments=naugments,

@@ -48,8 +48,7 @@ class DynamicsNet:
         """Feature-first apply: ``x`` is ``(n_in, batch)`` → ``(n_out, batch)``.
 
         Used by the ``layout="feature_first"`` solve path, which keeps the
-        batch in the TPU lane (minor-most) dimension so small feature widths
-        don't waste 128-lane vector registers.  Default falls back to the
+        batch in the minor-most dimension.  Default falls back to the
         batch-first ``apply`` via transposes; built-ins override with native
         transposed chains."""
         return jnp.swapaxes(self.apply(params, jnp.swapaxes(x, 0, -1)), 0, -1)
@@ -71,8 +70,7 @@ class MLP(DynamicsNet):
     widths via :func:`continuousnormalizingflows_tpu.models.icnf.default_net`).
 
     Weights are stored transposed relative to Lux (``(in, out)``) so the
-    forward pass is ``x @ W + b`` — row-major batch-first layout keeps the
-    batch dimension on MXU rows on TPU.
+    forward pass is ``x @ W + b`` in the row-major batch-first layout.
     """
 
     def __init__(
@@ -87,12 +85,11 @@ class MLP(DynamicsNet):
         self.widths = tuple(int(w) for w in widths)
         self.activation = activation
         self.dtype = dtype
-        # TPU MXU note: the default matmul precision on TPU truncates float32
-        # operands to bfloat16 (~1e-3 relative error), which is far above the
-        # adaptive solver's 1e-4 error control and would stall step acceptance.
-        # "highest" keeps float32-accurate MXU passes; set "default" for
-        # bf16-speed runs with fixed-step solvers where MC/trace noise
-        # dominates anyway.
+        # "default" lets XLA run float32 matmuls in its fast mode: TF32 on
+        # NVIDIA GPUs (about 10 mantissa bits, ~1e-3 relative error), far
+        # coarser than the adaptive solver's 1e-4 error control, which it
+        # would stall.  "highest" keeps float32-accurate products; "default"
+        # suits fixed-step solvers where Monte-Carlo trace noise dominates.
         self.precision = precision
         self.n_in = self.widths[0]
         self.n_out = self.widths[-1]
@@ -119,7 +116,7 @@ class MLP(DynamicsNet):
         return h
 
     def apply_t(self, params: Params, x: jax.Array) -> jax.Array:
-        """Feature-first chain ``Wᵀ h + b`` — same params, batch in lanes."""
+        """Feature-first chain ``Wᵀ h + b`` — same params, batch minor-most."""
         h = x
         last = len(params) - 1
         for i, layer in enumerate(params):

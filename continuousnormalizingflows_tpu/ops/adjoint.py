@@ -8,7 +8,7 @@ Two paths, mirroring the two classical strategies (SURVEY.md §7 item 4):
 * ``gradient="adjoint"`` — optimize-then-discretize: a ``jax.custom_vjp`` whose
   backward pass integrates the continuous adjoint ODE from ``t1`` back to
   ``t0`` with the same adaptive solver.  O(1) memory in trajectory length; the
-  TPU-native analogue of the reference's ``SciMLSensitivity.QuadratureAdjoint``
+  JAX-native analogue of the reference's ``SciMLSensitivity.QuadratureAdjoint``
   with ``ZygoteVJP`` (reference ``src/core/icnf.jl:90-99``).  Parameter
   gradients are accumulated *inside* the backward solve as extra quadrature
   states (``dgrad/dt = -a^T ∂f/∂θ``), so one VJP per backward step yields the
@@ -45,9 +45,8 @@ def _bwd_cfg(cfg: SolverConfig) -> SolverConfig:
     ``dt0="auto"`` (the HNW starting-step estimate) is tuned for primal
     ODEs; the backward state mixes the adjoint with zero-initialized
     parameter-quadrature blocks whose atol-dominated weighted norms skew the
-    d0/d1 curvature probe — measured on TPU: auto on the backward solve
-    turns a 37→32-NFE forward win into a 2.98→3.69 ms/step LOSS.  The
-    backward solve keeps the fixed-fraction ramp (same spirit as excluding
+    d0/d1 curvature probe, and its extra probe evaluation bought no NFE on
+    the backward solve.  The backward solve keeps the fixed-fraction ramp (same spirit as excluding
     q from the backward error norm via the seminorm)."""
     if isinstance(cfg.dt0, str):
         return dataclasses.replace(cfg, dt0=DEFAULT_FIXED_DT0)
@@ -60,9 +59,8 @@ def _bwd_dt0(args_nd: Pytree):
 
     Under ``dt0="carry"`` the backward solve dominates the train step (the
     forward collapses to ~1 accepted step while the backward still pays its
-    own fixed ramp): measured on v5e, warm-starting ONLY the forward gives
-    1.17x while a float ``dt0`` — which _bwd_cfg lets through to the
-    backward too — gives 1.68x.  The carried dt is the same field one step
+    own fixed ramp), so the carry warms the backward solve too, as a float
+    ``dt0`` does through _bwd_cfg.  The carried dt is the same field one step
     earlier, so it sizes the backward (adjoint) steps as well; the
     controller's reject-and-shrink recovers cheaply if it overshoots, and a
     poisoned value falls back to the fixed ramp inside ``_initial_dt``.
@@ -76,7 +74,9 @@ def _bwd_dt0(args_nd: Pytree):
 def _tree_vdot(a: Pytree, b: Pytree) -> jax.Array:
     leaves_a = jax.tree_util.tree_leaves(a)
     leaves_b = jax.tree_util.tree_leaves(b)
-    return sum(jnp.vdot(x, y) for x, y in zip(leaves_a, leaves_b))
+    return sum(
+        jnp.vdot(x, y, precision="highest") for x, y in zip(leaves_a, leaves_b)
+    )
 
 
 # args entries that never receive useful cotangents on the continuous-adjoint

@@ -9,8 +9,7 @@ AD system.  What survives as a static switch is the *estimator*
 (exact | vjp-probe | jvp-probe) — see
 :class:`continuousnormalizingflows_tpu.config.TraceEstimator`.
 
-State layout (batch-first, row-major — the TPU-friendly layout; the reference
-uses column-major d x n): ``u[:, :nz]`` is the flow state ``z`` (data +
+State layout (batch-first, row-major; the reference uses column-major d x n): ``u[:, :nz]`` is the flow state ``z`` (data +
 augmented dims), followed by 3 scalar accumulators per sample:
 ``u[:, nz]`` = Δlogp, ``u[:, nz + 1]`` = kinetic energy ∫‖ż‖ dt,
 ``u[:, nz + 2]`` = ∫‖εᵀJ‖ dt.  The two regularization accumulators are always
@@ -34,58 +33,9 @@ from ..models.nets import MLP as _MLP
 from ..models.nets import DynamicsNet
 from ..models.nets import Planar as _Planar
 
-__all__ = ["make_augmented_dynamics", "make_field", "EXACT_SWEEP_TPU_NZ_LIMIT"]
+__all__ = ["make_augmented_dynamics", "make_field"]
 
 Pytree = Any
-
-# Measured compile boundary for the GENERIC exact-trace sweep on the TPU
-# stack (PARITY.md round 3): an opaque (non-analytic) net at nz >= 513 dies
-# in the remote compiler (6 attempts: chunked AND unchunked, any step count)
-# while nz = 129 compiles and runs fine.  The reference handles any nn at any
-# d — slowly, via per-sample Jacobian stacks (utils.jl:12-88) — so where we
-# diverge we must say so at the API instead of surfacing an opaque HTTP-500.
-EXACT_SWEEP_TPU_NZ_LIMIT = 512
-
-
-def _generic_sweep_selected(cfg: ICNFConfig, net, mode: Mode) -> bool:
-    """True when make_augmented_dynamics would route the EXACT estimator to
-    the generic O(nz) linearize sweep (no analytic fast path applies)."""
-    if cfg.trace_for(mode) is not TraceEstimator.EXACT:
-        return False
-    if isinstance(net, _Planar):
-        return False
-    compute_reg_j = mode.regularized and cfg.norm_j
-    return not (_mlp_exact_applicable(net) and not compute_reg_j)
-
-
-def _check_exact_sweep_feasible(cfg: ICNFConfig, net, mode: Mode) -> None:
-    """Actionable failure for the configs the TPU compiler cannot build.
-
-    A raise here replaces an opaque remote-compiler crash; the alternatives
-    are the PARITY-documented working paths.  Set
-    ``CNF_TPU_ALLOW_LARGE_EXACT_SWEEP=1`` to attempt the compile anyway
-    (e.g. on a TPU software stack newer than the measured one)."""
-    import os
-
-    if (
-        _generic_sweep_selected(cfg, net, mode)
-        and cfg.nz > EXACT_SWEEP_TPU_NZ_LIMIT
-        and cfg.sweep_axis is None
-        and jax.default_backend() == "tpu"
-        and not os.environ.get("CNF_TPU_ALLOW_LARGE_EXACT_SWEEP")
-    ):
-        raise ValueError(
-            f"exact-trace sweep for a generic net at nz={cfg.nz} > "
-            f"{EXACT_SWEEP_TPU_NZ_LIMIT} is compile-infeasible on the measured "
-            "TPU stack (remote-compiler crash, PARITY.md round 3). Working "
-            "alternatives: (1) use the default shallow-MLP dynamics net — its "
-            "analytic exact trace is O(1) in nz and 21.8x faster than the "
-            "sweep anyway; (2) shard the sweep over a device mesh: set "
-            "exact_chunk plus sweep_axis under jax.set_mesh; (3) use the "
-            "Hutchinson estimate (Mode.TRAIN/TRAIN_NOREG) for stochastic "
-            "log-densities. Set CNF_TPU_ALLOW_LARGE_EXACT_SWEEP=1 to attempt "
-            "the compile regardless."
-        )
 
 
 def _act_and_deriv(act, z):
@@ -125,7 +75,7 @@ def _mlp_exact_trace(net: _MLP, params, x_full: jax.Array, nz: int,
             h1, s1 = _act_and_deriv(net.activation, z1)
             dz = jnp.matmul(l2["w"].T, h1, precision=prec) + l2["b"][:, None]
             g = jnp.sum(l1["w"][:nz, :] * l2["w"][:, :nz].T, axis=0)  # (h,)
-            div = jnp.einsum("k,kb->b", g, s1)
+            div = jnp.einsum("k,kb->b", g, s1, precision=prec)
             return dz, div
         (l1, l2, l3) = params
         z1 = jnp.matmul(l1["w"].T, x_full, precision=prec) + l1["b"][:, None]
@@ -143,7 +93,7 @@ def _mlp_exact_trace(net: _MLP, params, x_full: jax.Array, nz: int,
         h1, s1 = _act_and_deriv(net.activation, z1)
         dz = jnp.matmul(h1, l2["w"], precision=prec) + l2["b"]
         g = jnp.sum(l1["w"][:nz, :] * l2["w"][:, :nz].T, axis=0)  # (h,)
-        div = jnp.einsum("bk,k->b", s1, g)
+        div = jnp.einsum("bk,k->b", s1, g, precision=prec)
         return dz, div
     (l1, l2, l3) = params
     z1 = jnp.matmul(x_full, l1["w"], precision=prec) + l1["b"]
@@ -157,7 +107,7 @@ def _mlp_exact_trace(net: _MLP, params, x_full: jax.Array, nz: int,
     return dz, div
 
 
-def _mlp_exact_applicable(net, nparams_expected_only=False) -> bool:
+def _mlp_exact_applicable(net) -> bool:
     return isinstance(net, _MLP) and len(net.widths) in (3, 4)
 
 
@@ -223,8 +173,7 @@ def _make_augmented_dynamics_t(
 ) -> Callable[[jax.Array, jax.Array, Pytree], jax.Array]:
     """Feature-first twin of the factory below: state ``u`` is
     ``(state_dim, batch)``, probes ``(P, nz, batch)``, conditions
-    ``(nconditions, batch)`` — batch lives in the TPU lane dimension so the
-    tiny reference-default widths don't waste 128-lane vregs (see
+    ``(nconditions, batch)`` — batch is the minor-most dimension (see
     ``ICNFConfig.layout``).  Same math, reductions over axis 0."""
     nz = cfg.nz
     estimator = cfg.trace_for(mode)
@@ -332,7 +281,6 @@ def make_augmented_dynamics(
     conditions ``(nconditions, batch)`` (see :func:`_make_augmented_dynamics_t`);
     the transposition happens once per solve in ``core._solve``.
     """
-    _check_exact_sweep_feasible(cfg, net, mode)
     if cfg.layout == "feature_first":
         return _make_augmented_dynamics_t(cfg, net, mode)
     nz = cfg.nz
@@ -340,56 +288,7 @@ def make_augmented_dynamics(
     compute_reg_z = mode.regularized and cfg.norm_z
     compute_reg_j = mode.regularized and cfg.norm_j
     field = make_field(cfg, net)
-
-    from ..models.nets import MLP
-
-    use_fused = (
-        cfg.fused
-        and estimator is TraceEstimator.HUTCH_VJP
-        and cfg.nprobes == 1
-        and isinstance(net, MLP)
-        and len(net.widths) == 4
-        and net.widths[1] == net.widths[2]
-        and net.widths[1] <= 1024  # wider shrinks the VMEM-budget tile below 8
-        and net.activation is jax.nn.softplus
-        and jax.default_backend() == "tpu"
-    )
-    if use_fused:
-        from .pallas_kernels import fused_dynamics_vjp
-
-        def f_aug_fused(t: jax.Array, u: jax.Array, args: Pytree) -> jax.Array:
-            params = args["params"]
-            eps = args["eps"]
-            ys = args.get("ys")
-            z = u[..., :nz]
-            cols = [z]
-            if not cfg.autonomous:
-                tcol = jnp.broadcast_to(
-                    jnp.asarray(t, z.dtype).reshape((1,) * z.ndim), z.shape[:-1] + (1,)
-                )
-                cols.append(tcol)
-            if cfg.conditioned:
-                cols.append(
-                    jnp.broadcast_to(ys, z.shape[:-1] + (ys.shape[-1],)).astype(z.dtype)
-                )
-            x_full = jnp.concatenate(cols, axis=-1)
-            cdt = (
-                jnp.bfloat16
-                if getattr(net, "precision", "highest") != "highest"
-                else None
-            )
-            dz, _epsj, div, reg_z, reg_j = fused_dynamics_vjp(
-                x_full, eps[0], params, nz, 256, cdt
-            )
-            if not compute_reg_z:
-                reg_z = jnp.zeros_like(div)
-            if not compute_reg_j:
-                reg_j = jnp.zeros_like(div)
-            return jnp.concatenate(
-                [dz, -div[..., None], reg_z[..., None], reg_j[..., None]], axis=-1
-            )
-
-        return f_aug_fused
+    prec = getattr(net, "precision", "highest")
 
     def f_aug(t: jax.Array, u: jax.Array, args: Pytree) -> jax.Array:
         params = args["params"]
@@ -462,8 +361,8 @@ def make_augmented_dynamics(
             reg_j = jnp.zeros((batch,), u.dtype)
         elif estimator is TraceEstimator.EXACT:
             # Exact trace via nz forward sweeps of the batched linearization —
-            # each sweep is one full-batch matmul chain, so the MXU stays busy
-            # (vs the reference's per-sample Jacobian stacks, utils.jl:12-88).
+            # each sweep is one full-batch matmul chain (vs the reference's
+            # per-sample Jacobian stacks, utils.jl:12-88).
             dz, lin = jax.linearize(g, z)
             if cfg.exact_chunk == 0 and cfg.sweep_axis is None:
                 basis = jnp.eye(nz, dtype=z.dtype)
@@ -505,7 +404,9 @@ def make_augmented_dynamics(
                     )(basis)  # (chunk, batch, nz): row c = J^T e_{idx_c}
                     # diagonal entries via the same one-hot rows (fuses into
                     # the producing matmul; no dynamic gather)
-                    div_acc = div_acc + jnp.einsum("cbj,cj->b", jrows, basis)
+                    div_acc = div_acc + jnp.einsum(
+                        "cbj,cj->b", jrows, basis, precision=prec
+                    )
                     if compute_reg_j:
                         fro_acc = fro_acc + jnp.sum(
                             jnp.square(jrows), axis=(0, 2)

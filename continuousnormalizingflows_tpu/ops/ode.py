@@ -3,7 +3,7 @@
 The reference outsources integration to SciML's VCABM (adaptive-order
 Adams-Bashforth-Moulton, reference ``src/core/icnf.jl:84-89``) with host-side
 step control.  A multistep state machine maps poorly onto XLA, so the
-TPU-native design uses:
+JAX-native design uses:
 
 * ``dopri5`` — embedded Dormand-Prince 5(4) with FSAL and a PI step-size
   controller, driven by a single ``lax.while_loop`` whose whole body is traced
@@ -14,7 +14,7 @@ TPU-native design uses:
   the collective-consistent adaptivity required for SPMD (SURVEY.md §5).
 * ``rk4`` / ``euler`` — fixed-step ``lax.scan`` paths: reverse-differentiable
   (discretize-then-optimize) with optional per-step rematerialization
-  (``jax.checkpoint``) to trade FLOPs for HBM.
+  (``jax.checkpoint``) to trade FLOPs for device memory.
 
 All integrators share the signature ``odeint(f, y0, t0, t1, args, cfg)`` with
 ``f(t, y, args) -> dy`` over pytrees and return ``(y1, stats)`` with
@@ -149,8 +149,8 @@ def _controller_factor(ratio, inv_order, safety, min_factor, max_factor, tdt):
     A trial step whose error ratio is NaN/Inf (an overflowed f eval — e.g. a
     too-large dt pushing softplus/exp past the float range) must be treated as
     a hard reject with maximal shrink, NOT fed to ``power`` (NaN factor ⇒ NaN
-    dt ⇒ the loop spins its whole step budget before poisoning — measured as
-    a 16k-iteration stall on the TPU).  Shrinking re-enters the finite region;
+    dt ⇒ the loop spins its whole step budget before poisoning — observed as
+    a 16k-iteration stall).  Shrinking re-enters the finite region;
     genuine divergence (NaN params) is caught by the caller's give-up test.
 
     Returns ``(finite, factor)``."""
@@ -180,8 +180,7 @@ def _pop_dt0(args):
     signatures unchanged; the adjoint paths route it through the nondiff
     args split (zero cotangent) and ALSO warm-start their backward solves
     from it via an explicit ``dt0_override`` (``adjoint._bwd_dt0`` — the
-    backward solve dominates the train step, so fwd-only carry measured
-    1.17x where fwd+bwd measures 2.37x)."""
+    backward solve pays its own controller ramp otherwise)."""
     if isinstance(args, dict) and "dt0" in args:
         args = dict(args)
         return args, args.pop("dt0")
@@ -203,8 +202,8 @@ def _initial_dt(f, t0, y0, f0, args, cfg, span, direction, err_order, tdt,
     "auto" is the parity behavior AND measurably cheaper than a fixed guess:
     a fixed ``dt0 = 0.01`` spends ~1-3 accepted steps ramping dt up through
     the controller on every solve.  Measured on a trained 2-D CNF field at
-    rtol 1e-4 (PARITY.md): dopri5 TRAIN NFE 25 → 20, TEST 37 → 32; tsit5
-    25 → 20 both modes.  Costs one extra f eval (f0 is already paid); the
+    rtol 1e-4 (PARITY.md, read before the move to the GPU): dopri5 TRAIN
+    NFE 25 → 20, TEST 37 → 32; tsit5 25 → 20 both modes.  Costs one extra f eval (f0 is already paid); the
     weighted norms are global reductions, so SPMD collective consistency is
     preserved.  A float ``dt0`` keeps the fixed span-fraction start.  ABM
     ignores "auto" (see odeint_abm: its order-1 ramp needs the small start).
@@ -560,7 +559,7 @@ def _hist_dot(ws: jax.Array, f_hist: Pytree) -> Pytree:
     """``Σ_j ws[j] * f_hist[j]`` over the leading history axis."""
     return jax.tree_util.tree_map(
         lambda leaf: jnp.tensordot(
-            ws.astype(leaf.dtype), leaf, axes=((0,), (0,))
+            ws.astype(leaf.dtype), leaf, axes=((0,), (0,)), precision="highest"
         ),
         f_hist,
     )
@@ -580,7 +579,7 @@ def odeint_abm(
     reference's solver class (VCABM, adaptive order *and* step, reference
     ``src/core/icnf.jl:89``) at ~2 new f-evals per step vs 6 per dopri5 trial.
 
-    TPU-native design (static shapes; no VCABM divided-difference state
+    JAX-native design (static shapes; no VCABM divided-difference state
     machine):
 
     * history = ring of the last ``K = cfg.abm_order`` ``(t, f)`` pairs;
@@ -634,8 +633,8 @@ def odeint_abm(
     # the HNW starting-step estimate sizes the first step for a one-step
     # method; the multistep ramp starts at order 1 with a 2x growth clamp, so
     # an Euler-accurate first step is too large for the Milne pair and costs
-    # rejections (measured: TRAIN NFE 25 -> 32) — the fixed-fraction ramp is
-    # the right start for ABM
+    # rejections (TRAIN NFE 25 -> 32, read before the move to the GPU) — the
+    # fixed-fraction ramp is the right start for ABM
     dt_init, nfe_init = (
         span * jnp.asarray(
             DEFAULT_FIXED_DT0 if isinstance(cfg.dt0, str) else cfg.dt0, tdt
@@ -855,7 +854,7 @@ class DenseSolution(NamedTuple):
     (``generate`` solves t1 → t0, base_icnf.jl:318).  Unused buffer slots hold
     ``s = +inf`` so ``searchsorted`` never selects them.
 
-    This is the TPU-native analogue of the dense forward solution the
+    This is the JAX-native analogue of the dense forward solution the
     reference's ``QuadratureAdjoint`` interpolates (SciMLSensitivity;
     reference sol_kwargs icnf.jl:90-99): cubic Hermite on (y, f) node pairs is
     the classic O(h^4) interpolant — one order below the DP5 solution but

@@ -2,7 +2,7 @@
 
 The reference is single-process/single-device — its only parallelism is
 intra-device "matrix mode" batching (SURVEY.md §2.9).  This module is the
-TPU-native scaling layer that replaces it:
+JAX-native scaling layer that replaces it:
 
 * a named :class:`jax.sharding.Mesh` with a ``data`` axis (batch +
   per-sample Hutchinson probes are sharded along it) and an optional
@@ -16,8 +16,8 @@ TPU-native scaling layer that replaces it:
   accept/reject decision and step size by construction — the hard requirement
   called out in SURVEY.md §5;
 * ``initialize_distributed`` wires multi-host runs
-  (``jax.distributed.initialize``): collectives ride ICI within a slice and
-  DCN across slices, chosen by XLA from the mesh axis order.
+  (``jax.distributed.initialize``).  XLA hands the collectives to the
+  backend's library (NCCL on NVIDIA GPUs).
 
 Randomness: probe/steer keys are ordinary jit inputs; under pjit the sampled
 probe array inherits the batch sharding, so each device holds independent
@@ -61,7 +61,11 @@ def make_mesh(
     axis_names: Tuple[str, ...] = ("data", "model"),
 ) -> Mesh:
     """Build a ``data x model`` mesh.  ``data`` defaults to
-    ``len(devices) // model`` — pure data parallelism."""
+    ``len(devices) // model`` — pure data parallelism.
+
+    The shape follows the algorithm, not the interconnect: the cards of one
+    host are joined all to all (NVLink), so every device order costs the
+    same."""
     devices = list(devices) if devices is not None else list(jax.devices())
     if data is None:
         data = len(devices) // model
@@ -142,7 +146,7 @@ def shard_train_step(
     opt-state replicated — or, with ``tensor_parallel=True``, carrying
     whatever shardings the caller committed them with (see
     :func:`shard_mlp_params`).  XLA turns the global loss mean + ``jax.grad``
-    into per-device compute with one gradient ``psum`` over ICI (plus the
+    into per-device compute with one gradient ``psum`` (plus the
     row-parallel activation all-reduce in the TP case).
 
     ``n_extra_repl`` appends that many replicated trailing arguments to the

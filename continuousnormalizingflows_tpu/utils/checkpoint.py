@@ -3,14 +3,13 @@
 The reference only persists fitted models via MLJ machine serialization
 (``fitresult = (ps, st)``; examples/usage.jl:79-103) and has no mid-training
 resume.  Here checkpoints cover params + optimizer state + step, enabling the
-failure-recovery story a multi-host TPU job needs (SURVEY.md §5): save
+failure-recovery story a multi-host accelerator job needs (SURVEY.md §5): save
 periodically, restart from the latest on preemption.
 
 Backends: plain numpy-pickle (default — fast, single-host) and Orbax
-(``use_orbax=True``; the TPU-ecosystem standard, async-capable and multi-host
-aware — opt-in because tensorstore's many tiny fsyncs take minutes on slow
-network filesystems like this dev image's, measured 224 s for a 3-float
-tree).  Both write a ``meta.json`` with the step and the backend used, and
+(``use_orbax=True``; the JAX-ecosystem standard, async-capable and multi-host
+aware — opt-in because tensorstore's many tiny fsyncs can take minutes on
+slow network filesystems).  Both write a ``meta.json`` with the step and the backend used, and
 :func:`load_checkpoint` auto-detects.
 """
 

@@ -133,7 +133,9 @@ def smooth_image_mixture(key: jax.Array, n: int, side: int = 28, ncomp: int = 3)
     xi = jax.random.normal(k_noise, (n, side * side), jnp.float32)
     # one (n, d) x (d, d) matmul per component + select — never materialize a
     # per-sample (d, d) Cholesky gather (40 GB at d = 784, n = 16k)
-    noise_k = jnp.stack([xi @ chols[k].T for k in range(ncomp)])  # (k, n, d)
+    noise_k = jnp.stack([
+        jnp.matmul(xi, chols[k].T, precision="highest") for k in range(ncomp)
+    ])  # (k, n, d)
     noise = jnp.take_along_axis(noise_k, comp[None, :, None], axis=0)[0]
     return means[comp] + noise
 

@@ -9,7 +9,7 @@ that a serving process can run with only ``jax.export.deserialize`` — no
 model code, config objects, or parameter files.  Artifacts are
 shape-polymorphic in the batch dimension (one artifact serves any batch
 size) and can be lowered for several platforms at once
-(``platforms=("tpu", "cpu")``).
+(``platforms=("cuda", "cpu")``).
 
 What is exported is the deterministic TestMode surface — exactly what a
 density-serving endpoint needs:
@@ -75,7 +75,7 @@ def export_logpdf(
     batch size.  For a conditional model the exported callable is
     ``(x, ys) -> logp``.
 
-    ``platforms``: e.g. ``("tpu", "cpu")`` to lower for both (default: the
+    ``platforms``: e.g. ``("cuda", "cpu")`` to lower for both (default: the
     current backend only).
 
     ``mesh``: a :class:`jax.sharding.Mesh` for **multi-chip serving** — the
@@ -134,8 +134,8 @@ def export_sampler(
 
     ``n`` is fixed at export time (the base draw's shape); a serving process
     batches requests to the exported size.  ``trace_free=True`` (default)
-    integrates the bare field — the sampling fast path (PARITY: 1.4-1.5x);
-    the sample distribution is identical.  Conditions, if any, are baked in
+    integrates the bare field — the sampling fast path (no per-step trace
+    estimate); the sample distribution is identical.  Conditions, if any, are baked in
     from ``ys`` (export one artifact per served condition, or bake a batch
     of per-sample conditions of length ``n``).
     """

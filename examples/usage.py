@@ -5,7 +5,7 @@ RNODE with STEER) with the reference-default optimizer, saves/loads the fitted
 model, evaluates the density against the truth, draws samples, and plots.
 
 Run:  JAX_PLATFORMS=cpu python examples/usage.py        (CPU)
-      python examples/usage.py                          (TPU)
+      python examples/usage.py                          (GPU)
 """
 
 import os

@@ -73,7 +73,7 @@ def test_smoke_sweep(mode, trace, conditioned, planar):
 @pytest.mark.parametrize("conditioned", [False, True])
 @pytest.mark.parametrize("planar", [False, True])
 def test_feature_first_layout_parity(mode, trace, conditioned, planar):
-    """layout='feature_first' (batch in TPU lanes) must be numerically
+    """layout='feature_first' (batch minor-most) must be numerically
     equivalent to the default batch-first path: same probes/steer keys →
     same loss, matching gradients, same generate() samples."""
     ncond = 2 if conditioned else 0

@@ -1,7 +1,7 @@
 """Serving export (utils.export): StableHLO artifacts with baked params.
 
 The reference serves via the Julia stack + BSON machines (mlj_ext
-MLJBase.save); this is the TPU-native production path beyond it — artifact
+MLJBase.save); this is the JAX-native production path beyond it — artifact
 round-trips must reproduce the live model bit-for-bit-to-tolerance with no
 model code at load time."""
 

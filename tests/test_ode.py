@@ -670,8 +670,8 @@ class TestNonFiniteRobustness:
     """A non-finite trial step (overflowed f eval) must be rejected-and-shrunk,
     and a genuinely non-finite field (e.g. NaN params mid-training) must exit
     via the give-up path with the loud NaN poison after a BOUNDED number of
-    iterations — not burn the whole 16k step budget (measured on v5e: the
-    pre-fix NaN-dt spiral watchdog-faulted the device)."""
+    iterations — not burn the whole 16k step budget (the pre-fix NaN-dt
+    spiral ran until the device's watchdog faulted it)."""
 
     @pytest.mark.parametrize("method", ["dopri5", "tsit5", "abm"])
     def test_nan_field_gives_up_quickly(self, method):

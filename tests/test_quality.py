@@ -112,10 +112,26 @@ def test_bench_helper_functions():
     assert bench.spread_pct([2.0, 2.0, 2.0]) == 0.0
     # reference-default 2-D net: widths (6, 24, 24, 5)
     assert bench.mlp_fwd_flops((6, 24, 24, 5)) == 2 * (6*24 + 24*24 + 24*5)
-    tflops, pct = bench.train_mfu(
-        3.4e6, 128, (6, 24, 24, 5), 4, bench.PEAK_BF16_TFLOPS
-    )
-    # 3.4e6 * 128 * 2*1680 * 4 / 1e12 = 5.849 TFLOP/s (the ROADMAP ~5.7-5.9
-    # speed-of-light estimate, now a tracked formula)
+    tf32 = bench.peaks_for("NVIDIA H100 80GB HBM3")["tf32_tflops"]
+    tflops, pct = bench.train_mfu(3.4e6, 128, (6, 24, 24, 5), 4, tf32)
+    # 3.4e6 * 128 * 2*1680 * 4 / 1e12 = 5.849 TFLOP/s
     assert abs(tflops - 5.849) < 0.01
-    assert abs(pct - 100 * tflops / 197.0) < 0.01
+    assert abs(pct - 100 * tflops / 495.0) < 0.01
+
+
+def test_bench_peaks_h100_data_sheet():
+    import bench
+
+    assert bench.peaks_for("NVIDIA H100 80GB HBM3") == {
+        "bf16_tflops": 989.0,
+        "tf32_tflops": 495.0,
+        "fp32_tflops": 67.0,
+        "hbm_tb_per_s": 3.35,
+    }
+
+
+def test_bench_peaks_unknown_device_raises():
+    import bench
+
+    with pytest.raises(KeyError, match="no peak rates"):
+        bench.peaks_for("cpu")

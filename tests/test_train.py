@@ -229,7 +229,7 @@ def test_opt_state_resume_is_exact(beta_fit):
 def test_steps_per_dispatch_bit_parity():
     """A k-steps-per-dispatch fit is bit-identical to the per-step loop: the
     scan body performs the same ``split(key)`` sequence and the same gathers,
-    so params, history cadence, and the advanced key all match (the TPU-first
+    so params, history cadence, and the advanced key all match (the XLA-first
     dispatch-batching must not change training semantics)."""
     icnf = cnf.ICNF.create(nvariables=2, solver=FAST_TRAIN)
     x = datasets.gaussian_mixture(jax.random.PRNGKey(3), 96)
@@ -367,8 +367,8 @@ def test_steps_per_dispatch_conditional_and_mesh():
 
 def test_config1_ring_reduced_scale():
     """BASELINE config 1 (2-D ring-of-Gaussians RNODE) at reduced scale — the
-    quality gate behind the round-4 re-anchored PARITY row (full scale on
-    TPU: gap 0.0503 nats with the reference-default net at 64k samples /
+    quality gate behind the round-4 re-anchored PARITY row (full scale:
+    gap 0.0503 nats with the reference-default net at 64k samples /
     300 epochs; benchmarks/cfg1_converge.py).  At this CPU scale (4096
     samples, 150 epochs) the measured gap is ~0.42 nats; 0.6 catches gross
     regressions of the training stack without minutes of runtime."""
@@ -392,7 +392,7 @@ def test_load_tabular_real_and_quick_fit():
     """Real UCI tabular loader (round 4): deterministic split, train-stat
     standardization, and a quick fit that must beat the DIAGONAL Gaussian on
     held-out data (the full benchmark protocol with baselines lives in
-    benchmarks/tabular_real.py; TPU results in PARITY.md round 4)."""
+    benchmarks/tabular_real.py; results in PARITY.md round 4)."""
     from continuousnormalizingflows_tpu.utils.datasets import load_tabular_real
 
     xtr, xte = load_tabular_real("wine", seed=0)
@@ -580,8 +580,8 @@ def test_diabetes_validated_fit_beats_full_gaussian():
 def test_dt0_carry_training():
     """``SolverConfig(dt0="carry")`` (round 5): each train step's adaptive
     solve warm-starts from the previous step's accepted dt — the per-solve
-    controller ramp disappears (measured on v5e: adaptive train NFE 25 →
-    13-19, 1.6-1.7x samples/s; PARITY round 5).  Asserts: the final step's
+    controller ramp disappears (adaptive train NFE 19 → 7 near init in
+    bench.py on an H100).  Asserts: the final step's
     NFE beats the fixed-ramp twin's, the fitted loss agrees (solution-level
     equivalence to solver tolerance), and steps_per_dispatch bit-parity
     holds with the carried scalar in the scan state."""
